@@ -1,6 +1,6 @@
 // Native convergence layer: packet validators + PHY<->network (de)framing.
 //
-// TPU-native framework note: the compute path of gr_dtl_tpu is JAX/XLA;
+// Framework note: the compute path of gr_dtl_jax is JAX/XLA;
 // this host-side packet plumbing mirrors the reference's C++ testbed
 // components (lib/testbed/packet_validator.cc, from_phy_impl.cc,
 // to_phy_impl.cc) as a small C shared library consumed via ctypes —

@@ -4,9 +4,9 @@ exactly (hysteresis 1 dB, 3-decision counter, SNR up/down sweep)."""
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.models import adaptive
-from gr_dtl_tpu.ops.constellation import ConstellationType as C
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.models import adaptive
+from gr_dtl_jax.ops.constellation import ConstellationType as C
 
 
 def test_reference_decision_sequence():

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.ops import burst, channel
+from gr_dtl_jax.ops import burst, channel
 
 
 def test_burst_bits_layout():

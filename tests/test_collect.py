@@ -7,10 +7,10 @@ import sys
 
 import numpy as np
 
-from gr_dtl_tpu.testbed import monitor
-from gr_dtl_tpu.testbed.collect import (Collector, frame_success,
+from gr_dtl_jax.testbed import monitor
+from gr_dtl_jax.testbed.collect import (Collector, frame_success,
                                         load_jsonl, summarize)
-from gr_dtl_tpu.testbed.proto import monitor_pb2
+from gr_dtl_jax.testbed.proto import monitor_pb2
 
 
 def _eq_blob(builder, snr, lost_rate=0.0, nmsgs=0):

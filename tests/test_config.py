@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfg
-from gr_dtl_tpu.ops.constellation import ConstellationType
+from gr_dtl_jax.utils import config as cfg
+from gr_dtl_jax.ops.constellation import ConstellationType
 
 
 def test_defaults():
@@ -53,8 +53,8 @@ def test_empty_payload_crc_frame():
     import jax.numpy as jnp
     import numpy as np
 
-    from gr_dtl_tpu.models import framing
-    from gr_dtl_tpu.ops import gf2
+    from gr_dtl_jax.models import framing
+    from gr_dtl_jax.ops import gf2
 
     c = cfg.make_tx_config(None, frame_length=10)
     tables = gf2.make_crc_tables(gf2.CRC32_FRAME, c.max_frame_bytes())

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.ops import constellation as cn
+from gr_dtl_jax.ops import constellation as cn
 
 
 @pytest.mark.parametrize("ctype", [cn.ConstellationType.BPSK, cn.ConstellationType.QPSK,
@@ -69,7 +69,7 @@ def test_soft_llrs_closed_form_matches_table_oracle():
     algebraically."""
     import numpy as np
     import jax.numpy as jnp
-    from gr_dtl_tpu.ops import constellation as cn
+    from gr_dtl_jax.ops import constellation as cn
 
     rng = np.random.RandomState(42)
     B, n = 16, 64
@@ -91,7 +91,7 @@ def test_soft_llrs_signs_recover_hard_decision():
     LLR < 0 <=> nearest point has that bit = 1)."""
     import numpy as np
     import jax.numpy as jnp
-    from gr_dtl_tpu.ops import constellation as cn
+    from gr_dtl_jax.ops import constellation as cn
 
     rng = np.random.RandomState(7)
     for cid in (1, 2, 3, 4):

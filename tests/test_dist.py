@@ -1,13 +1,13 @@
 """Multi-host layout helpers: host-aware (stream, time) mesh keeps halo
-rings on ICI; init() is a single-process no-op."""
+rings within one host; init() is a single-process no-op."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.parallel import dist, stream as pstream
-from gr_dtl_tpu.utils import config as cfgmod
+from gr_dtl_jax.parallel import dist, stream as pstream
+from gr_dtl_jax.utils import config as cfgmod
 
 
 def test_init_noop_single_process(monkeypatch):
@@ -50,7 +50,7 @@ def test_host_mesh_rejects_ring_across_hosts():
 
 @pytest.mark.slow
 def test_two_process_distributed():
-    """Real 2-process jax.distributed run (VERDICT r1 item #4): spawns
+    """Real 2-process jax.distributed run: spawns
     two OS processes with 4 virtual CPU devices each, gloo collectives,
     and requires byte-exact decode through the global (stream, time)
     mesh in both processes."""
@@ -80,8 +80,7 @@ def test_two_process_sharded_session():
     """REAL 2-process continuous sharded streaming session: carried
     tail/lock/accounting state chained across process() calls on a
     global jax.distributed mesh, 3 blocks, byte-exact in both
-    processes (the always-on multi-host mode; VERDICT r4 item 2's
-    distributed completion)."""
+    processes (the always-on multi-host mode)."""
     import json
     import os
     import subprocess

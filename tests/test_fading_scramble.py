@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.ops import channel, constellation as cn, scramble
-from gr_dtl_tpu.models import receiver, transmitter
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.ops import channel, constellation as cn, scramble
+from gr_dtl_jax.models import receiver, transmitter
 import pytest
 
 

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-from gr_dtl_tpu.models import fec_chain
-from gr_dtl_tpu.ops import constellation as cn
+from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+from gr_dtl_jax.models import fec_chain
+from gr_dtl_jax.ops import constellation as cn
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -92,8 +92,8 @@ def test_bank_of_one_matches_single_code_path():
 def test_mixed_code_ofdm_loopback():
     """Full OFDM chain with per-frame code selection announced in the
     header's fec_scheme field: TX -> AWGN -> RX, exact recovery."""
-    from gr_dtl_tpu.models import receiver, transmitter
-    from gr_dtl_tpu.ops import channel
+    from gr_dtl_jax.models import receiver, transmitter
+    from gr_dtl_jax.ops import channel
 
     Hs = [_load("n_0100_k_0027.alist"), _load("n_0300_k_0152.alist")]
     txcfg = cfgmod.make_tx_config(None, frame_length=10, fec=True)
@@ -164,7 +164,7 @@ def test_mixed_code_noisy_decode():
 def test_decode_bank_mm_matches_gather_form():
     """The dense matmul-form bank decoder must agree with the gather
     form on hard bits, convergence, and iteration counts."""
-    from gr_dtl_tpu.ops import ldpc
+    from gr_dtl_jax.ops import ldpc
 
     Hs = [np.asarray(_load("n_0100_k_0027.alist")),
           np.asarray(_load("n_0300_k_0152.alist"))]

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-from gr_dtl_tpu.ops import constellation as cn, repack
-from gr_dtl_tpu.models import fec_chain
+from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+from gr_dtl_jax.ops import constellation as cn, repack
+from gr_dtl_jax.models import fec_chain
 
 ALISTS = [
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "n_0100_k_0027.alist"),

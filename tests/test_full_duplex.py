@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.models import full_duplex
-from gr_dtl_tpu.ops.constellation import ConstellationType as C
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.models import full_duplex
+from gr_dtl_jax.ops.constellation import ConstellationType as C
 
 
 def test_asymmetric_convergence():
@@ -44,8 +44,8 @@ def test_fec_full_duplex_adaptation():
     ref fec_frame_bvb_impl.cc:178-201)."""
     import os
 
-    from gr_dtl_tpu.utils import alist as alist_mod
-    from gr_dtl_tpu.models import fec_chain
+    from gr_dtl_jax.utils import alist as alist_mod
+    from gr_dtl_jax.models import fec_chain
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     Hs = [alist_mod.load_alist(os.path.join(here, "examples", f))

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.ops import gf2
+from gr_dtl_jax.ops import gf2
 
 
 def test_crc32_matches_zlib():

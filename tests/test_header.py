@@ -11,7 +11,7 @@ self-validate.
 import numpy as np
 import jax.numpy as jnp
 
-from gr_dtl_tpu.ops import header
+from gr_dtl_jax.ops import header
 
 
 def _crc16_bitwise(msg_bytes):

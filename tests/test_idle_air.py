@@ -1,4 +1,4 @@
-"""Idle-air / bursty-traffic behavior (VERDICT r1 item #8): streams
+"""Idle-air / bursty-traffic behavior: streams
 where only some frame slots carry energy.  The reference's frame_detect
 unlocks after 5 missing triggers and re-locks after 3 consistent ones
 (frame_detect_bb_impl.cc:21-22); lost-frame accounting must not invent
@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.ops import channel
-from gr_dtl_tpu.models import session, transmitter
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.ops import channel
+from gr_dtl_jax.models import session, transmitter
 import pytest
 
 

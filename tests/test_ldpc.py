@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.utils import alist as alist_mod
-from gr_dtl_tpu.ops import ldpc
+from gr_dtl_jax.utils import alist as alist_mod
+from gr_dtl_jax.ops import ldpc
 
 REF_ALIST = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "n_0100_k_0027.alist")
 
@@ -124,7 +124,7 @@ def test_decode_mm_with_shortening():
 
 
 def test_decode_mm_bf16_mode_converges(monkeypatch):
-    """GR_DTL_TPU_BP_BF16=1 (bf16 incidence matmuls, f32 accumulation):
+    """GR_DTL_BP_BF16=1 (bf16 incidence matmuls, f32 accumulation):
     noisy codewords still decode exactly and the syndrome gate still
     rejects garbage -- the precision knob must not change decisions at
     operating SNR."""
@@ -132,8 +132,8 @@ def test_decode_mm_bf16_mode_converges(monkeypatch):
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from gr_dtl_tpu.ops import ldpc
-    from gr_dtl_tpu.utils import alist as alist_mod
+    from gr_dtl_jax.ops import ldpc
+    from gr_dtl_jax.utils import alist as alist_mod
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     H = alist_mod.load_alist(os.path.join(here, "examples",
@@ -147,7 +147,7 @@ def test_decode_mm_bf16_mode_converges(monkeypatch):
            + rng.randn(B, code["N"]).astype(np.float32) * 0.8)
 
     hard32, it32, ok32 = ldpc.decode(jnp.asarray(llr), code, 15)
-    monkeypatch.setenv("GR_DTL_TPU_BP_BF16", "1")
+    monkeypatch.setenv("GR_DTL_BP_BF16", "1")
     hard16, it16, ok16 = ldpc.decode_mm(jnp.asarray(llr), code, 15)
     assert bool(jnp.all(ok16)), "bf16 BP failed to converge on clean noise"
     np.testing.assert_array_equal(np.asarray(hard16), cws)
@@ -165,7 +165,7 @@ def test_decode_mm_twopass_matches_decode_mm():
 
     import jax
 
-    from gr_dtl_tpu.utils import alist as alist_mod
+    from gr_dtl_jax.utils import alist as alist_mod
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     H = alist_mod.load_alist(os.path.join(here, "examples",

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.ops import channel, constellation as cn
-from gr_dtl_tpu.models import receiver, transmitter
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.ops import channel, constellation as cn
+from gr_dtl_jax.models import receiver, transmitter
 
 
 def _make_payloads(cfg, B, cnst_ids, rng):

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.ops import constellation as cn, metrics
+from gr_dtl_jax.ops import constellation as cn, metrics
 
 
 def test_constellation_metric_zero_for_exact():

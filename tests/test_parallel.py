@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.ops import channel, constellation as cn
-from gr_dtl_tpu.models import receiver, transmitter
-from gr_dtl_tpu.parallel import mesh as meshmod, stream as pstream
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.ops import channel, constellation as cn
+from gr_dtl_jax.models import receiver, transmitter
+from gr_dtl_jax.parallel import mesh as meshmod, stream as pstream
 
 
 def _tx_streams(cfg, n_streams, frames_per_stream, seed=0):
@@ -120,8 +120,8 @@ def test_sharded_coded_loopback_exact_recovery():
     channel + halo-exchanging RX with in-graph BP decode, sharded over
     (stream, time) — every TB must recover exactly at comfortable SNR
     (the coded counterpart of test_sharded_loopback_full_step)."""
-    from gr_dtl_tpu.models import fec_chain
-    from gr_dtl_tpu.utils import alist as alist_mod
+    from gr_dtl_jax.models import fec_chain
+    from gr_dtl_jax.utils import alist as alist_mod
     import os
 
     assert jax.device_count() >= 8

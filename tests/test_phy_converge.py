@@ -7,7 +7,7 @@ import struct
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.testbed.phy_converge import (
+from gr_dtl_jax.testbed.phy_converge import (
     FromPhy, Protocol, to_phy_frame, validate_packet,
 )
 

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.ops import repack
+from gr_dtl_jax.ops import repack
 
 
 def test_bytes_bits_roundtrip():

@@ -13,7 +13,7 @@ import threading
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.testbed import sample_io
+from gr_dtl_jax.testbed import sample_io
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.ops import channel, constellation as cn
-from gr_dtl_tpu.models import session, transmitter
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.ops import channel, constellation as cn
+from gr_dtl_jax.models import session, transmitter
 import pytest
 
 
@@ -154,8 +154,8 @@ def test_stream_tx_fec_roundtrip():
     stream decodes exactly through a FEC StreamRx."""
     import os
 
-    from gr_dtl_tpu.utils import alist as alist_mod
-    from gr_dtl_tpu.models import fec_chain
+    from gr_dtl_jax.utils import alist as alist_mod
+    from gr_dtl_jax.models import fec_chain
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     H = alist_mod.load_alist(os.path.join(here, "examples",
@@ -351,7 +351,7 @@ def test_stream_rx_monitor_probe():
     """A probe-equipped StreamRx publishes one parseable MonitorEqMsg
     per received frame, continuously across blocks (ref always-on
     monitor attachment, frame_equalizer_vcvc_impl.cc:210-216)."""
-    from gr_dtl_tpu.testbed import monitor
+    from gr_dtl_jax.testbed import monitor
 
     cfg = cfgmod.make_rx_config(None, frame_length=10)
     txcfg = cfgmod.make_tx_config(None, frame_length=10)
@@ -591,8 +591,8 @@ def test_stream_rx_mega_coded_tb_matches_stream_rx():
     calls (loss re-anchoring included)."""
     import os
 
-    from gr_dtl_tpu.utils import alist as alist_mod
-    from gr_dtl_tpu.models import fec_chain
+    from gr_dtl_jax.utils import alist as alist_mod
+    from gr_dtl_jax.models import fec_chain
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     H = alist_mod.load_alist(os.path.join(here, "examples",

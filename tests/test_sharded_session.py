@@ -16,11 +16,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-from gr_dtl_tpu.ops import channel, constellation as cn
-from gr_dtl_tpu.models import fec_chain, session, transmitter
-from gr_dtl_tpu.parallel import mesh as meshmod
-from gr_dtl_tpu.parallel.session import ShardedStreamRx
+from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+from gr_dtl_jax.ops import channel, constellation as cn
+from gr_dtl_jax.models import fec_chain, session, transmitter
+from gr_dtl_jax.parallel import mesh as meshmod
+from gr_dtl_jax.parallel.session import ShardedStreamRx
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALIST = os.path.join(HERE, "examples", "n_0100_k_0027.alist")
@@ -274,7 +274,7 @@ def test_sharded_session_probe_telemetry():
     """A probe-equipped sharded session publishes one parseable
     MonitorEqMsg per received frame of every stream (the always-on
     monitor attachment, ref frame_equalizer_vcvc_impl.cc:210-216)."""
-    from gr_dtl_tpu.testbed import monitor
+    from gr_dtl_jax.testbed import monitor
 
     assert jax.device_count() >= 8
     cfg = cfgmod.make_rx_config(None, frame_length=10)

@@ -5,9 +5,9 @@ test_002_feedback_txrx's reverse-channel round trip)."""
 import jax
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.models import simplex
-from gr_dtl_tpu.ops.constellation import ConstellationType as C
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.models import simplex
+from gr_dtl_jax.ops.constellation import ConstellationType as C
 
 
 def test_simplex_adaptation_converges():

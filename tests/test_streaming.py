@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.models import streaming
+from gr_dtl_jax.models import streaming
 
 
 def test_pack_pdus_whole_boundaries():

@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.utils import config as cfgmod
-from gr_dtl_tpu.ops import channel
-from gr_dtl_tpu.ops import sync
-from gr_dtl_tpu.ops.sync import _moving_sum, extract_windows
-from gr_dtl_tpu.models import receiver, transmitter
+from gr_dtl_jax.utils import config as cfgmod
+from gr_dtl_jax.ops import channel
+from gr_dtl_jax.ops import sync
+from gr_dtl_jax.ops.sync import _moving_sum, extract_windows
+from gr_dtl_jax.models import receiver, transmitter
 import pytest
 
 
@@ -81,15 +81,15 @@ class TestTapDenoise:
     """Time-support projection (chanest.denoise_taps)."""
 
     def _ce(self):
-        from gr_dtl_tpu.utils import config as cfgmod
-        from gr_dtl_tpu.ops import chanest
+        from gr_dtl_jax.utils import config as cfgmod
+        from gr_dtl_jax.ops import chanest
         cfg = cfgmod.make_rx_config(None)
         return cfg, chanest.build_chanest(cfg)
 
     def test_noiseless_time_limited_channel_is_fixed_point(self):
         import numpy as np
         import jax.numpy as jnp
-        from gr_dtl_tpu.ops import chanest
+        from gr_dtl_jax.ops import chanest
         cfg, ce = self._ce()
         rng = np.random.RandomState(0)
         support = 2 * cfg.cp_len + 1
@@ -104,7 +104,7 @@ class TestTapDenoise:
     def test_noise_reduction(self):
         import numpy as np
         import jax.numpy as jnp
-        from gr_dtl_tpu.ops import chanest
+        from gr_dtl_jax.ops import chanest
         cfg, ce = self._ce()
         rng = np.random.RandomState(1)
         H = np.exp(-2j * np.pi * (np.arange(cfg.fft_len) - 32) * 16 / 64)
@@ -211,3 +211,24 @@ def test_fine_cfo_batch_matches_per_stream():
     want = np.stack([np.asarray(sync.fine_cfo(Pm[s], trig[s], 16))
                      for s in range(S)])
     np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [9000, 8256])
+def test_timing_metric_matches_float64_sliding_sums(n):
+    """The metric against direct float64 sliding sums of its definition:
+    P(d) = sum_{m<32} conj(r[d+m]) r[d+m+32], M = |P|^2 / (R1 R2)."""
+    rng = np.random.RandomState(n)
+    r = (rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64)
+    P, M = sync.timing_metric(jnp.asarray(r), 64)
+    r64 = r.astype(np.complex128)
+    out = n - 64
+    P_ref = np.array([np.sum(np.conj(r64[d:d + 32]) * r64[d + 32:d + 64])
+                      for d in range(out)])
+    R1 = np.array([np.sum(np.abs(r64[d:d + 32]) ** 2) for d in range(out)])
+    R2 = np.array([np.sum(np.abs(r64[d + 32:d + 64]) ** 2)
+                   for d in range(out)])
+    assert P.shape == M.shape == (out,)
+    np.testing.assert_allclose(np.asarray(P), P_ref, atol=2e-4 * np.abs(
+        P_ref).max())
+    np.testing.assert_allclose(np.asarray(M), np.abs(P_ref) ** 2 / (R1 * R2),
+                               atol=1e-4)

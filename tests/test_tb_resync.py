@@ -1,4 +1,4 @@
-"""Loss-resilient transport-block reassembly (VERDICT r1 item #2).
+"""Loss-resilient transport-block reassembly.
 
 The reference's tb_decoder re-anchors on the header's tb_no/tb_offset
 after a lost frame (tb_decoder.cc:90-138) so one lost frame costs one
@@ -12,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-from gr_dtl_tpu.ops import channel, constellation as cn
-from gr_dtl_tpu.models import fec_chain, session, transmitter
+from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+from gr_dtl_jax.ops import channel, constellation as cn
+from gr_dtl_jax.models import fec_chain, session, transmitter
 import pytest
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -7,9 +7,9 @@ import sys
 
 import numpy as np
 
-from gr_dtl_tpu.testbed import monitor
-from gr_dtl_tpu.testbed.frame_store import FrameStore, read_frames
-from gr_dtl_tpu.testbed.proto import monitor_pb2
+from gr_dtl_jax.testbed import monitor
+from gr_dtl_jax.testbed.frame_store import FrameStore, read_frames
+from gr_dtl_jax.testbed.proto import monitor_pb2
 
 
 def test_proto_roundtrip_capture():
@@ -155,8 +155,8 @@ def test_eq_dec_messages_from_rxout():
     assert msgs[0].constellation_key == 2
     assert abs(msgs[1].estimated_snr_tag_key - 25.0) < 1e-9
 
-    from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-    from gr_dtl_tpu.models import fec_chain
+    from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+    from gr_dtl_jax.models import fec_chain
     cfg = cfgmod.make_tx_config(None, frame_length=10, fec=True)
     H = alist_mod.load_alist(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "n_0100_k_0027.alist"))
     fec = fec_chain.build_fec(cfg, H)

@@ -2,12 +2,11 @@
 """Measure the matmul-form vs gather-form LDPC bank decoder crossover.
 
 ``fec_chain`` routes small code banks to ``ldpc.decode_bank_mm`` (dense
-MXU-resident message passing, n_codes x redundant FLOPs) and large
-banks to ``ldpc.decode_bank`` (gather walks).  The switch point was a
-hardcoded guess (n_codes <= 4); this tool measures both forms at
-n_codes in {1,2,4,6,8} on the current device and records the evidence
-(examples/bank_switch_bench.json).  The threshold is now configurable
-via ``GR_DTL_TPU_BANK_MM_MAX`` (see fec_chain).
+matmul message passing, n_codes x redundant FLOPs) and large banks to
+``ldpc.decode_bank`` (gather walks).  This tool measures both forms at
+n_codes in {1,2,4,6,8} on the current device; the threshold is
+configurable via ``GR_DTL_BANK_MM_MAX`` (see fec_chain).  Needs a GPU
+unless --cpu.
 
 Bank composition: n_codes copies of the n=300/k=152 demo code — what
 matters for the mm-form's cost is the *bank size* (its dense operators
@@ -26,7 +25,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gr_dtl_tpu.utils.fetch import fetch_float  # noqa: E402
 
 
 def main():
@@ -37,15 +35,13 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
-    if args.cpu or os.environ.get("RUN_MODEM_CPU", "0") == "1":
-        import jax
+    from gr_dtl_jax.utils.platform import device_summary, select_platform
 
-        jax.config.update("jax_platforms", "cpu")
-    import jax
+    jax = select_platform(args.cpu, tool="bench_bank_switch")
     import jax.numpy as jnp
 
-    from gr_dtl_tpu.utils import alist as alist_mod
-    from gr_dtl_tpu.ops import ldpc
+    from gr_dtl_jax.utils import alist as alist_mod
+    from gr_dtl_jax.ops import ldpc
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     H = alist_mod.load_alist(os.path.join(here, "examples",
@@ -68,12 +64,12 @@ def main():
                 _, _, ok = fn(llr + acc * 1e-12, idx, bank, max_iters=15)
                 return acc + jnp.sum(ok).astype(jnp.float32)
 
-            fetch_float(step(jnp.float32(0), llr, idx))
+            float(step(jnp.float32(0), llr, idx))
             acc = jnp.float32(0)
             t0 = time.perf_counter()
             for _ in range(args.iters):
                 acc = step(acc, llr, idx)
-            ok = fetch_float(acc)
+            ok = float(acc)
             return (time.perf_counter() - t0) / args.iters, ok / (
                 args.iters * CW)
 
@@ -94,18 +90,18 @@ def main():
     if crossover is not None:
         note = ("mm-form cost grows with bank size (dense stacked "
                 "operators); gather-form is bank-size-invariant.  "
-                "GR_DTL_TPU_BANK_MM_MAX should sit just below the "
+                "GR_DTL_BANK_MM_MAX should sit just below the "
                 f"measured crossover ({crossover}).")
     else:
         note = ("mm-form won at every probed bank size (max "
                 f"{max_probed}); no crossover measured.  "
-                "GR_DTL_TPU_BANK_MM_MAX defaults are only evidenced up "
+                "GR_DTL_BANK_MM_MAX defaults are only evidenced up "
                 f"to {max_probed} codes — larger banks extrapolate.")
     res = {
         "metric": "bank_decoder_crossover",
         "codewords_per_step": CW,
         "code": "n=300 k=152 (xN copies)",
-        "platform": jax.devices()[0].platform,
+        "device": device_summary(),
         "rows": rows,
         "max_probed_n_codes": max_probed,
         "measured_crossover_n_codes": crossover,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Interleaved A/B: batch-wide-exit BP (decode_mm) vs the two-pass
-straggler schedule (decode_mm_twopass) — VERDICT r4 item 7.
+straggler schedule (decode_mm_twopass).
 
 Same discipline as tools/bench_bf16_ab.py: both compiled variants
 decode the SAME device-resident LLR batch back to back, repeated
@@ -9,9 +9,10 @@ entry), knee (~96% converge, stragglers burn the budget — where a
 straggler schedule could win), waterfall (majority unconverged — where
 it cannot).
 
+Needs a GPU unless --cpu.
+
 Usage:
-  python tools/chip_gate.py --heavy -- \
-      python tools/bench_twopass.py --reps 5 --out examples/bp_twopass_ab_r05.json
+  python tools/bench_twopass.py --reps 5 --out bp_twopass_ab.json
 
 Ref: lib/dtl/ldpc_dec.cc:27 (per-codeword 15-iteration cap semantics).
 """
@@ -29,7 +30,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gr_dtl_tpu.utils.fetch import fetch_float  # noqa: E402
 
 
 def main():
@@ -45,14 +45,13 @@ def main():
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
 
-    import jax
+    from gr_dtl_jax.utils.platform import device_summary, select_platform
+
+    jax = select_platform(args.cpu, tool="bench_twopass")
     import jax.numpy as jnp
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-
-    from gr_dtl_tpu.utils import alist as alist_mod
-    from gr_dtl_tpu.ops import ldpc
+    from gr_dtl_jax.utils import alist as alist_mod
+    from gr_dtl_jax.ops import ldpc
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     H = alist_mod.load_alist(
@@ -86,7 +85,7 @@ def main():
                           acc[1] + jnp.sum(it).astype(jnp.float32)])
 
     result = {"metric": "bp_twopass_ab",
-              "platform": jax.devices()[0].platform,
+              "device": device_summary(),
               "reps": args.reps, "iters_per_rep": args.iters, "cw": CW,
               "first": args.first,
               "bucket": args.bucket or max(128, CW // 8),
@@ -100,8 +99,8 @@ def main():
         stats = {}
         for label, fn in (("mm", step_mm), ("twopass", step_2p)):
             acc = fn(llr, jnp.zeros(2))
-            stats[label] = {"ok_rate": round(fetch_float(acc[0]) / CW, 4),
-                            "avg_iters": round(fetch_float(acc[1]) / CW, 2),
+            stats[label] = {"ok_rate": round(float(acc[0]) / CW, 4),
+                            "avg_iters": round(float(acc[1]) / CW, 2),
                             "ms": []}
 
         def timed(fn):
@@ -109,7 +108,7 @@ def main():
             t0 = time.perf_counter()
             for _ in range(args.iters):
                 acc = fn(llr, acc)
-            fetch_float(acc[0])
+            float(acc[0])
             return (time.perf_counter() - t0) / args.iters * 1e3
 
         for _ in range(args.reps):

@@ -19,7 +19,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from gr_dtl_tpu.testbed.frame_store import read_frames  # noqa: E402
+from gr_dtl_jax.testbed.frame_store import read_frames  # noqa: E402
 
 
 def score(tx_path: str, rx_path: str) -> dict:

@@ -41,6 +41,26 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+# BER-parity operating points (cnst_id, channel snr dB, frames), chosen
+# so theory BER is measurable with modest batch sizes.  BPSK@6 is the
+# ladder's bottom rung; the others sit at/near their MCS thresholds
+# (QPSK switches in at 13 dB; 8PSK/QAM16 points are below their 18/23 dB
+# thresholds — harder than any SNR the adaptive loop would run them at).
+PARITY_POINTS = [
+    (1, 6.0, 256),
+    (2, 13.0, 128),
+    (3, 14.0, 192),
+    (4, 16.0, 128),
+]
+MAX_LOSS_DB = 0.7  # 0.5 dB target + finite-sample margin
+
+# The FEC ladder switches constellations 2 dB earlier than the uncoded
+# ladder (11/16/21 vs 13/18/23 dB, ref examples/config_fec.json vs
+# config.json) — the code must buy >=2 dB at each switch point, and
+# decode essentially error-free there: at most one TB error in 128.
+FEC_POINTS = [(2, 11.0), (3, 16.0), (4, 21.0)]
+FEC_MAX_FER = 1 / 128
+
 
 def qfunc(x):
     return 0.5 * math.erfc(x / math.sqrt(2.0))
@@ -96,10 +116,9 @@ def run_point(cnst_id, snr_db, frames, seed, frame_length, fec_alist=None,
     import jax
     import jax.numpy as jnp
 
-    from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-    from gr_dtl_tpu.utils.fetch import fetch_np
-    from gr_dtl_tpu.ops import channel, constellation as cn
-    from gr_dtl_tpu.models import fec_chain, receiver, transmitter
+    from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+    from gr_dtl_jax.ops import channel, constellation as cn
+    from gr_dtl_jax.models import fec_chain, receiver, transmitter
 
     use_fec = fec_alist is not None
     kw = {}
@@ -148,28 +167,31 @@ def run_point(cnst_id, snr_db, frames, seed, frame_length, fec_alist=None,
             jax.random.fold_in(key, 0))
         noisy = channel.awgn(jax.random.fold_in(key, 1), tx.samples, noise_v)
         rx = receiver.rx_frames(rxp, noisy, fallback_cnst=jnp.asarray(cnst))
-        return rx.payload, rx.header_ok
+        return rx.payload, rx.header_ok, rx.crc_ok
 
     bit_errors = 0
     bits_total = 0
     frame_errors = 0
     frame_errors_given_hdr = 0
     hdr_ok_total = 0
+    undetected = 0
     n_frames = 0
     n_batches = max_batches if target_frame_errors else 1
     for b in range(n_batches):
         payload = np.zeros((B, maxb), np.uint8)
         for i in range(B):
             payload[i, : plen[i]] = rng.randint(0, 256, plen[i])
-        got, hdr_ok = batch(jnp.asarray(payload),
-                            jax.random.PRNGKey(seed + 7919 * b))
-        got, hdr_ok = fetch_np(got), fetch_np(hdr_ok)
+        got, hdr_ok, crc_ok = jax.device_get(batch(
+            jnp.asarray(payload), jax.random.PRNGKey(seed + 7919 * b)))
         # vectorized bit-error count (plen is constant per point)
         L = int(plen[0])
         e_bits = np.unpackbits(got[:, :L] ^ payload[:, :L], axis=1).sum(1)
         bit_errors += int(e_bits.sum())
         bits_total += B * L * 8
         frame_errors += int(((e_bits > 0) | ~hdr_ok).sum())
+        # frames the device CRC passed although the header or the bytes
+        # were wrong
+        undetected += int((crc_ok & ((e_bits > 0) | ~hdr_ok)).sum())
         # decoder-only failures: frames whose header SURVIVED but whose
         # payload/TB still failed — the low-SNR coded waterfall is
         # otherwise dominated by header CRC16 loss, conflating two
@@ -198,6 +220,7 @@ def run_point(cnst_id, snr_db, frames, seed, frame_length, fec_alist=None,
         "fer_given_hdr": (frame_errors_given_hdr / hdr_ok_total
                           if hdr_ok_total else None),
         "frame_errors_given_hdr": frame_errors_given_hdr,
+        "undetected_errors": undetected,
         "theory_ber": th,
         "loss_db": (round(implementation_loss_db(cnst_id, es_n0, ber), 3)
                     if bit_errors >= 10 else None),
@@ -223,17 +246,12 @@ def main():
     p.add_argument("--max-batches", type=int, default=200)
     p.add_argument("--json", default=None)
     p.add_argument("--cpu", action="store_true",
-                   help="force the CPU platform (default: use the chip "
-                        "when one is attached)")
-    p.add_argument("--tpu", action="store_true",
-                   help="back-compat: don't force CPU (now the default)")
+                   help="run on the CPU (default: needs a GPU)")
     args = p.parse_args()
 
-    import jax
+    from gr_dtl_jax.utils.platform import select_platform
 
-    want_cpu = args.cpu or os.environ.get("RUN_MODEM_CPU", "0") == "1"
-    if want_cpu and not (args.tpu or os.environ.get("RUN_MODEM_TPU", "0") == "1"):
-        jax.config.update("jax_platforms", "cpu")
+    select_platform(args.cpu, tool="ber_curve")
 
     rows = []
     for c in (int(x) for x in args.cnsts.split(",")):

@@ -3,7 +3,7 @@
 
 The external-collector end of the monitoring pipe (SURVEY.md §3.5): the
 modem publishes protobuf/JSON telemetry over ZMQ PUB
-(gr_dtl_tpu.testbed.monitor.MonitorProbe, mirroring the reference's
+(gr_dtl_jax.testbed.monitor.MonitorProbe, mirroring the reference's
 ``monitor_probe``); this tool subscribes, decodes every message through
 the registry parser, and
 
@@ -29,7 +29,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gr_dtl_tpu.testbed.collect import Collector
+from gr_dtl_jax.testbed.collect import Collector
 
 
 def main() -> int:

@@ -27,9 +27,12 @@ Modes:
   --baseline N     strong base worker (spawned by --launch).
   --baseline-half  weak base worker (spawned by --launch).
 
-On real TPU pods the same worker runs unchanged per host: ``dist.init``
-reads JAX_COORDINATOR/JAX_NUM_PROCESSES/JAX_PROCESS_ID and the mesh
-comes out (hosts*chips // n_time, n_time) with time rings on ICI.
+This tool runs on the CPU only: every process uses the CPU platform
+with gloo collectives.  A multi-process launch on GPUs (one process per
+card, NCCL collectives) is not written yet.  ``dist.init`` reads
+JAX_COORDINATOR/JAX_NUM_PROCESSES/JAX_PROCESS_ID, and the mesh comes
+out (hosts*devices // n_time, n_time) with each time ring inside one
+host.
 
 Workload sizing (learned in round 2): at 8 streams x 2 frames/block the
 per-step wall time is ~all gloo dispatch latency and efficiency reads
@@ -136,8 +139,8 @@ def _run_steps(step, mesh, payload, plen, cnst, frame_no, steps, warmup):
 
 
 def _build_and_run(mesh, p, streams):
-    from gr_dtl_tpu.parallel import stream as pstream
-    from gr_dtl_tpu.utils import config as cfgmod
+    from gr_dtl_jax.parallel import stream as pstream
+    from gr_dtl_jax.utils import config as cfgmod
 
     txcfg = cfgmod.make_tx_config(None, frame_length=p["frame_length"])
     rxcfg = cfgmod.make_rx_config(None, frame_length=p["frame_length"])
@@ -159,7 +162,7 @@ def worker(args):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from gr_dtl_tpu.parallel import dist
+    from gr_dtl_jax.parallel import dist
 
     assert dist.init(), "dist.init() did not initialize jax.distributed"
     n_proc = jax.process_count()
@@ -193,16 +196,16 @@ def session_worker(args):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from gr_dtl_tpu.parallel import dist
+    from gr_dtl_jax.parallel import dist
 
     assert dist.init(), "dist.init() did not initialize jax.distributed"
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
 
-    from gr_dtl_tpu.models import transmitter
-    from gr_dtl_tpu.ops import channel, constellation as cn
-    from gr_dtl_tpu.parallel.session import ShardedStreamRx
-    from gr_dtl_tpu.utils import config as cfgmod
+    from gr_dtl_jax.models import transmitter
+    from gr_dtl_jax.ops import channel, constellation as cn
+    from gr_dtl_jax.parallel.session import ShardedStreamRx
+    from gr_dtl_jax.utils import config as cfgmod
 
     p = _params()
     mesh = dist.make_host_mesh(n_time=p["n_time"])
@@ -341,7 +344,7 @@ def baseline(n_devices: int, half: bool = False):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from gr_dtl_tpu.parallel import dist
+    from gr_dtl_jax.parallel import dist
 
     p = _params()
     mesh = dist.make_host_mesh(n_time=p["n_time"])

@@ -1,12 +1,8 @@
 #!/usr/bin/env python3
-"""Coded-path cost breakdown on the chip: where do the non-BP
-milliseconds go?
-
-BENCH_fec_r02 showed the full coded step at 16.3 ms with raw BP at
-4.5 ms — the coded path's overhead (soft LLRs, codeword serialization /
-de-shortening gathers, bit unpack, CRC) dominates.  This tool measures
-the pipeline cumulatively (value-chained, scalar-fetch timed, same
-methodology as bench.py):
+"""Coded-path cost breakdown on the GPU: where do the non-BP
+milliseconds go (soft LLRs, codeword serialization / de-shortening,
+bit unpack, CRC)?  This tool measures the pipeline cumulatively
+(value-chained steps, timed up to a host read of the final scalar):
 
   stage 1: detect_and_extract only           (sync + CFO + window gather)
   stage 2: + rx_frames(defer_fec=True)       (demod + equalize + header
@@ -15,8 +11,8 @@ methodology as bench.py):
                                               + CRC)  == full coded RX
   ref    : rx_frames on the uncoded build    (hard-decision demod path)
 
-Differences between consecutive stages give per-stage cost.  Prints one
-JSON line; --out writes the artifact.
+Differences between consecutive stages give per-stage cost.  Needs a
+GPU unless --cpu.  Prints one JSON line; --out writes the artifact.
 """
 
 from __future__ import annotations
@@ -31,7 +27,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gr_dtl_tpu.utils.fetch import fetch_float  # noqa: E402
 
 
 def timed(fn, *args, iters=8):
@@ -39,12 +34,12 @@ def timed(fn, *args, iters=8):
     import jax.numpy as jnp
 
     acc = fn(jnp.float32(0), *args)
-    fetch_float(acc)  # compile + settle
+    float(acc)  # compile + settle
     acc = jnp.float32(0)
     t0 = time.perf_counter()
     for _ in range(iters):
         acc = fn(acc, *args)
-    v = fetch_float(acc)
+    v = float(acc)
     return (time.perf_counter() - t0) / iters, v
 
 
@@ -54,16 +49,14 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
-    if args.cpu or os.environ.get("RUN_MODEM_CPU", "0") == "1":
-        import jax
+    from gr_dtl_jax.utils.platform import device_summary, select_platform
 
-        jax.config.update("jax_platforms", "cpu")
-    import jax
+    jax = select_platform(args.cpu, tool="profile_fec_breakdown")
     import jax.numpy as jnp
 
-    from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-    from gr_dtl_tpu.ops import channel
-    from gr_dtl_tpu.models import fec_chain, receiver, transmitter
+    from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+    from gr_dtl_jax.ops import channel
+    from gr_dtl_jax.models import fec_chain, receiver, transmitter
 
     B = args.frames
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,6 +147,7 @@ def main():
     res = {
         "metric": "fec_breakdown",
         "frames": B,
+        "device": device_summary(),
         "samples_per_step": n_samples,
         "detect_ms": round(t1 * 1e3, 3),
         "defer_fec_ms": round(t2 * 1e3, 3),

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""XLA/TPU trace capture for the modem chains (SURVEY.md §5 tracing).
+"""Profiler trace capture for the modem chains on the GPU (SURVEY.md §5
+tracing).
 
 The reference's only tracing is timestamped per-block logs mined by
 log.sh; here the profiler is the real thing: this tool runs the chosen
@@ -7,9 +8,11 @@ chain a few times under ``jax.profiler.trace`` and writes a TensorBoard
 / Perfetto-compatible trace (HLO ops, fusion boundaries, HBM transfers)
 for kernel-level performance work.
 
-    python tools/profile_rx.py --out /tmp/dtl_trace          # full RX
-    python tools/profile_rx.py --fec --frames 128            # coded RX
-    tensorboard --logdir /tmp/dtl_trace                      # then open
+    python tools/profile_rx.py --out dtl_trace            # full RX
+    python tools/profile_rx.py --fec --frames 128         # coded RX
+    tensorboard --logdir dtl_trace                        # then open
+
+Needs a GPU unless --cpu.
 """
 
 from __future__ import annotations
@@ -25,21 +28,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default="/tmp/dtl_trace",
+    ap.add_argument("--out", default="dtl_trace",
                     help="trace output directory (TensorBoard logdir)")
     ap.add_argument("--frames", type=int, default=256)
     ap.add_argument("--frame-length", type=int, default=20)
     ap.add_argument("--fec", action="store_true", help="profile the coded path")
     ap.add_argument("--steps", type=int, default=3,
                     help="traced executions after warmup")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: needs a GPU)")
     args = ap.parse_args()
 
-    import jax
+    from gr_dtl_jax.utils.platform import select_platform
+
+    jax = select_platform(args.cpu, tool="profile_rx")
     import jax.numpy as jnp
 
-    from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-    from gr_dtl_tpu.ops import channel, constellation as cn
-    from gr_dtl_tpu.models import fec_chain, receiver, transmitter
+    from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+    from gr_dtl_jax.ops import channel, constellation as cn
+    from gr_dtl_jax.models import fec_chain, receiver, transmitter
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     if args.fec:

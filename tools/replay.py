@@ -24,7 +24,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-from gr_dtl_tpu.utils.fetch import fetch_float, fetch_np
 
 def main():
     p = argparse.ArgumentParser()
@@ -36,23 +35,17 @@ def main():
     p.add_argument("--store-rx", default=None)
     p.add_argument("--json", action="store_true")
     p.add_argument("--cpu", action="store_true",
-                   help="force the CPU platform (default: use the chip "
-                        "when one is attached)")
-    p.add_argument("--tpu", action="store_true",
-                   help="back-compat: don't force CPU (now the default)")
+                   help="run on the CPU (default: needs a GPU)")
     args = p.parse_args()
 
-    want_cpu = args.cpu or os.environ.get("RUN_MODEM_CPU", "0") == "1"
-    if want_cpu and not (args.tpu or os.environ.get("RUN_MODEM_TPU", "0") == "1"):
-        import jax
+    from gr_dtl_jax.utils.platform import select_platform
 
-        jax.config.update("jax_platforms", "cpu")
-    import jax
+    jax = select_platform(args.cpu, tool="replay")
     import jax.numpy as jnp
 
-    from gr_dtl_tpu.utils import alist as alist_mod, config as cfgmod
-    from gr_dtl_tpu.models import fec_chain, receiver
-    from gr_dtl_tpu.ops import metrics
+    from gr_dtl_jax.utils import alist as alist_mod, config as cfgmod
+    from gr_dtl_jax.models import fec_chain, receiver
+    from gr_dtl_jax.ops import metrics
 
     cfg = cfgmod.make_rx_config(args.config, frame_length=args.frame_length)
     fec = None
@@ -71,15 +64,15 @@ def main():
     res = {
         "capture_samples": int(len(raw)),
         "frames": int(n_frames),
-        "header_ok_rate": float(fetch_np(rx.header_ok).mean()),
-        "crc_ok_rate": float(fetch_np(rx.crc_ok).mean()),
-        "est_snr_db": float(fetch_np(rx.snr_db).mean()),
-        "mean_cfo_subcarriers": float(fetch_np(eps).mean()),
-        "carr_offset": int(fetch_np(rx.carr_offset)[0]),
+        "header_ok_rate": float(np.asarray(rx.header_ok).mean()),
+        "crc_ok_rate": float(np.asarray(rx.crc_ok).mean()),
+        "est_snr_db": float(np.asarray(rx.snr_db).mean()),
+        "mean_cfo_subcarriers": float(np.asarray(eps).mean()),
+        "carr_offset": int(np.asarray(rx.carr_offset)[0]),
         "lost_frame_rate": float(lost_rate),
     }
     if args.store_rx:
-        from gr_dtl_tpu.testbed.frame_store import FrameStore
+        from gr_dtl_jax.testbed.frame_store import FrameStore
 
         with FrameStore(args.store_rx) as s:
             s.store_batch(rx)

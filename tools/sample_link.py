@@ -55,21 +55,21 @@ ROOT = os.path.dirname(HERE)
 sys.path.insert(0, ROOT)
 
 
-def _cpu_platform():
-    # node subprocesses pin CPU (both sides of the link are host loops;
-    # the test must not depend on the chip) unless the caller forces TPU
-    if os.environ.get("RUN_MODEM_TPU", "0") != "1":
-        import jax
+def _node_platform(on_gpu: bool = False):
+    """Nodes run on the CPU; ``--gpu`` gives the card to the RX node
+    alone (one JAX process per card: a second one would find the card's
+    memory already reserved)."""
+    from gr_dtl_jax.utils.platform import select_platform
 
-        jax.config.update("jax_platforms", "cpu")
+    select_platform(force_cpu=not on_gpu, tool="sample_link")
 
 
 def tx_node(args):
-    _cpu_platform()
+    _node_platform()
     import jax  # noqa: F401  (platform pinned above)
-    from gr_dtl_tpu.models import session
-    from gr_dtl_tpu.testbed import sample_io
-    from gr_dtl_tpu.utils import config as cfgmod
+    from gr_dtl_jax.models import session
+    from gr_dtl_jax.testbed import sample_io
+    from gr_dtl_jax.utils import config as cfgmod
 
     cfg = cfgmod.make_tx_config(
         args.config, frame_length=args.frame_length,
@@ -114,13 +114,13 @@ def tx_node(args):
 
 
 def rx_node(args):
-    _cpu_platform()
+    _node_platform(args.gpu)
     import jax
     import jax.numpy as jnp
-    from gr_dtl_tpu.models import adaptive, session
-    from gr_dtl_tpu.ops import burst
-    from gr_dtl_tpu.testbed import sample_io
-    from gr_dtl_tpu.utils import config as cfgmod
+    from gr_dtl_jax.models import adaptive, session
+    from gr_dtl_jax.ops import burst
+    from gr_dtl_jax.testbed import sample_io
+    from gr_dtl_jax.utils import config as cfgmod
 
     rxcfg = cfgmod.make_rx_config(args.config, frame_length=args.frame_length)
     rx = session.StreamRx(rxcfg, frames_per_block=args.frames_per_block)
@@ -205,12 +205,12 @@ def duplex_node(args, initiator: bool):
     """One full-duplex node: StreamTx + StreamRx over one socket,
     in-band echo adaptation (ref ofdm_adaptive_full_duplex.py:29-43 as
     a deployed two-process system)."""
-    _cpu_platform()
+    _node_platform()
     import jax
     import jax.numpy as jnp
-    from gr_dtl_tpu.models import adaptive, session
-    from gr_dtl_tpu.testbed import sample_io
-    from gr_dtl_tpu.utils import config as cfgmod
+    from gr_dtl_jax.models import adaptive, session
+    from gr_dtl_jax.testbed import sample_io
+    from gr_dtl_jax.utils import config as cfgmod
 
     role = "a" if initiator else "b"
     txcfg = cfgmod.make_tx_config(
@@ -409,9 +409,14 @@ def loopback_test(args):
             "--seed", str(args.seed)]
     if args.config:
         base += ["--config", args.config]
+    rx_env = env
+    if args.gpu:
+        rx_env = {k: v for k, v in env.items() if k != "RUN_MODEM_CPU"}
     rxp = subprocess.Popen(base + ["--rx"] + (
-        ["--snr-db", str(args.snr_db)] if args.snr_db is not None else []),
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        ["--snr-db", str(args.snr_db)] if args.snr_db is not None else [])
+        + (["--gpu"] if args.gpu else []),
+        env=rx_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
     # wait for the listener before connecting
     for line in rxp.stdout:
         if line.startswith("RX_LISTENING"):
@@ -465,6 +470,9 @@ def main():
                     help="inject AWGN at the RX (default: clean wire)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--gpu", action="store_true",
+                    help="loopback test: run the RX node on the GPU (the "
+                         "TX node stays on the CPU)")
     args = ap.parse_args()
     if args.tx:
         tx_node(args)

@@ -122,12 +122,13 @@ def main():
     ap.add_argument("--pipeline-depth", type=int, default=2)
     ap.add_argument("--jsonl", default="SOAK_r04.jsonl")
     ap.add_argument("--out", default="SOAK_r04.json")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run the daemons on the chip (default: CPU — "
-                         "the host-loop soak is platform-independent)")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run the RX daemon on the GPU (the TX daemon "
+                         "stays on the CPU: one JAX process per card); "
+                         "default: both on the CPU")
     args = ap.parse_args()
 
-    from gr_dtl_tpu.testbed import sample_io
+    from gr_dtl_jax.testbed import sample_io
 
     frame_samples = (args.frame_length + 3) * 80  # fft64+cp16, 2 sync + hdr
     block = args.frames_per_block * frame_samples
@@ -138,8 +139,10 @@ def main():
     n_pdus = 3 * n_blocks * args.frames_per_block
 
     env = dict(os.environ)
-    if not args.tpu:
-        env["RUN_MODEM_CPU"] = "1"
+    env["RUN_MODEM_CPU"] = "1"
+    rx_env = env
+    if args.gpu:
+        rx_env = {k: v for k, v in env.items() if k != "RUN_MODEM_CPU"}
 
     import socket as _socket
 
@@ -157,7 +160,7 @@ def main():
               "--frames-per-block", str(args.frames_per_block),
               "--pipeline-depth", str(args.pipeline_depth),
               "--stats-every", str(args.stats_every), "--json"]
-    rxp = subprocess.Popen(rx_cmd, env=env, stdout=subprocess.PIPE,
+    rxp = subprocess.Popen(rx_cmd, env=rx_env, stdout=subprocess.PIPE,
                            stderr=subprocess.DEVNULL, text=True, cwd=ROOT)
 
     # relay: connect to RX (retries until its listener is up), then
@@ -247,7 +250,7 @@ def main():
                         "cfo_max_subcarriers": args.cfo_max,
                         "cfo_period_samples": args.cfo_period,
                         "sfo_ppm": args.sfo_ppm},
-        "platform": "tpu" if args.tpu else "cpu",
+        "platform": final["platform"],  # the RX daemon's device
         "pipeline_depth": args.pipeline_depth,
         "records": len(records),
         "jsonl": args.jsonl,

@@ -20,7 +20,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gr_dtl_tpu.testbed.collect import (frame_success, load_jsonl,
+from gr_dtl_jax.testbed.collect import (frame_success, load_jsonl,
                                         summarize)
 
 

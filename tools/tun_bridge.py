@@ -58,17 +58,18 @@ def swap_echo(pkt: bytes) -> bytes:
 class ModemPipe:
     """Packets -> convergence layer -> OFDM loopback -> packets."""
 
-    def __init__(self, snr_db: float = 25.0, frame_length: int = 10):
-        import jax
+    def __init__(self, snr_db: float = 25.0, frame_length: int = 10,
+                 cpu: bool = False):
+        from gr_dtl_jax.utils.platform import select_platform
 
-        jax.config.update("jax_platforms", "cpu")
+        jax = select_platform(cpu, tool="tun_bridge")
         import jax.numpy as jnp
         import numpy as np
 
-        from gr_dtl_tpu.utils import config as cfgmod
-        from gr_dtl_tpu.ops import channel, constellation as cn
-        from gr_dtl_tpu.models import receiver, streaming, transmitter
-        from gr_dtl_tpu.testbed.phy_converge import FromPhy, Protocol
+        from gr_dtl_jax.utils import config as cfgmod
+        from gr_dtl_jax.ops import channel, constellation as cn
+        from gr_dtl_jax.models import receiver, streaming, transmitter
+        from gr_dtl_jax.testbed.phy_converge import FromPhy, Protocol
 
         self.jnp, self.np = jnp, np
         self.jax = jax
@@ -115,9 +116,9 @@ class ModemPipe:
 
 
 def self_test(n_packets: int = 8, timeout_s: float = 60.0,
-              out_path: str | None = None) -> int:
+              out_path: str | None = None, cpu: bool = False) -> int:
     tun = open_tun()
-    modem = ModemPipe()
+    modem = ModemPipe(cpu=cpu)
     # warm up the jitted chain before real traffic (first compile ~30 s)
     import struct as _s
     dummy = bytearray(_s.pack("!BBHHHBBH4s4s", 0x45, 0, 28, 1, 0, 64, 17, 0,
@@ -130,7 +131,7 @@ def self_test(n_packets: int = 8, timeout_s: float = 60.0,
     sock.settimeout(0.5)
     sent = {}
     for i in range(n_packets):
-        msg = f"dtl-tpu live packet {i}".encode() * 3
+        msg = f"dtl live packet {i}".encode() * 3
         sent[msg] = False
         sock.sendto(msg, ("10.99.0.2", 5005))
 
@@ -175,12 +176,14 @@ def main():
     p.add_argument("--self-test", action="store_true")
     p.add_argument("--packets", type=int, default=8)
     p.add_argument("--out", default=None, help="write a JSON artifact")
+    p.add_argument("--cpu", action="store_true",
+                   help="run the modem on the CPU (default: needs a GPU)")
     args = p.parse_args()
     if args.self_test:
-        sys.exit(self_test(args.packets, out_path=args.out))
+        sys.exit(self_test(args.packets, out_path=args.out, cpu=args.cpu))
     # bridge mode: echo forever
     tun = open_tun()
-    modem = ModemPipe()
+    modem = ModemPipe(cpu=args.cpu)
     print("bridging dtl0 through the modem (ctrl-c to stop)")
     while True:
         r, _, _ = select.select([tun], [], [], 1.0)
